@@ -2,7 +2,7 @@
 """Tour of engine features beyond the taxi demo: UDFs, window frames,
 arrays + UNNEST, set ops, GROUPING SETS, spill, EXPLAIN.
 
-Runs on CPU or TPU (forced-CPU by default so it works anywhere):
+Runs on the CPU (forced, so it works anywhere):
     python examples/features_demo.py
 """
 
@@ -15,12 +15,12 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, ".")
-import hdk_tpu  # noqa: E402
-from hdk_tpu import types as t  # noqa: E402
+import hdk_jax  # noqa: E402
+from hdk_jax import types as t  # noqa: E402
 
 
 def main() -> None:
-    hdk = hdk_tpu.init()
+    hdk = hdk_jax.init()
     rng = np.random.default_rng(0)
     n = 100_000
     trips = hdk.import_pydict({

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""NYC-taxi demo: the hdk_tpu analog of the reference's
-examples/heterogen_demo_taxi.ipynb — same queries, TPU execution.
+"""NYC-taxi demo: the hdk_jax analog of the reference's
+examples/heterogen_demo_taxi.ipynb — same queries, on the default JAX device.
 
 Run with a CSV of taxi trips (or no argument to use synthetic data):
 
@@ -12,7 +12,7 @@ import time
 
 import numpy as np
 
-import hdk_tpu
+import hdk_jax
 
 
 def load(hdk):
@@ -29,8 +29,8 @@ def load(hdk):
         "trip_distance": rng.gamma(1.5, 2.5, n).astype(np.float32),
         "pickup_datetime": np.int64(1356998400) + rng.integers(0, 4 * year, n),
     }, name="trips", schema={
-        "pickup_datetime": hdk_tpu.types.timestamp(
-            hdk_tpu.types.TimeUnit.SECOND, False)})
+        "pickup_datetime": hdk_jax.types.timestamp(
+            hdk_jax.types.TimeUnit.SECOND, False)})
 
 
 def show(title, res, seconds):
@@ -39,7 +39,7 @@ def show(title, res, seconds):
 
 
 def main():
-    hdk = hdk_tpu.init()
+    hdk = hdk_jax.init()
     trips = load(hdk)
 
     queries = {

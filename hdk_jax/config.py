@@ -1,0 +1,231 @@
+"""Configuration tree for hdk_jax.
+
+Analog of the reference's typed config struct tree
+(reference: omniscidb/Shared/Config.h:20-191, populated by
+ConfigBuilder/ConfigBuilder.cpp).  The reference parses 205 CLI flags into
+nested structs; here nested dataclasses are populated from keyword
+arguments using dotted or flat names (``buildConfig`` analog:
+python/pyhdk/_common.pyx:187-199).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any, Optional
+
+
+@dataclass
+class WatchdogConfig:
+    """reference: Shared/Config.h:20-26."""
+
+    enable: bool = False
+    max_rows_per_step: int = 2**62  # static budget; 0/huge = unlimited
+    time_limit_ms: int = 0  # dynamic budget; 0 = unlimited
+
+
+@dataclass
+class GroupByConfig:
+    """reference: Shared/Config.h:40-60 (GroupByConfig).
+
+    Knobs the reference needs but this engine dissolves by design (not
+    carried as dead surface): bigint_count (COUNT always accumulates in
+    int64 here), baseline_fill_fraction / big_group_threshold /
+    partitioning_* / min_max_partitions (hash-table fill + partitioned
+    aggregation sizing — the sort-based group-by has no fill constraint
+    and single-node partitioning is subsumed by the sort; distributed
+    partitioning is DistConfig's shuffle)."""
+
+    perfect_hash_entries_limit: int = 1 << 22  # max dense buffer entries
+    default_max_groups: int = 1 << 26  # cap for unsized baseline buffers
+    # sampling NDV estimator for unbounded keys (reference: estimator-
+    # as-mini-query, CardinalityEstimator.h:59): strided host sample +
+    # Chao84 lower-bound; 0 disables (caps fall back to default_max_groups)
+    ndv_sample_size: int = 1 << 16
+    # below this many input rows skip sampling: a cap==nrows buffer is
+    # harmless there, while the sample's device->host pull stalls the
+    # asynchronous dispatch of the query's later steps
+    ndv_sample_min_rows: int = 1 << 23
+    # mergeable-sketch sizing (reference: HyperLogLog.h hll_size /
+    # CountDistinctDescriptor approx precision; approx_quantile.h TDigest)
+    hll_precision: int = 11  # registers per group = 2^p (error ~1.04/sqrt(m))
+    hll_register_budget: int = 1 << 24  # total registers across groups
+    tdigest_centroids: int = 300
+    tdigest_centroid_budget: int = 1 << 21
+
+
+@dataclass
+class JoinConfig:
+    """reference: Shared/Config.h JoinConfig + HashJoin tuning."""
+
+    perfect_hash_range_limit: int = 1 << 24  # dense build table cap
+    enable_loop_join: bool = True
+    loop_join_inner_table_max_num_rows: int = 5000
+    # gather-free delta-spread route for huge FK joins whose consumers
+    # read only build-side columns (exec/join.py spread_inner_fk);
+    # below this probe size the value-table gather is cheaper
+    spread_join_min_rows: int = 4_000_000
+    # perfect-route INNER joins keep dead probe rows under the output
+    # row_mask (no keep-compaction gathers) when matches are at least
+    # this fraction of probe rows, or when every terminal consumer is
+    # another join (key evaluation folds the mask into NULL sentinels
+    # for free).  Below the fraction, compaction wins: downstream
+    # per-row work shrinks more than the per-column gathers cost.
+    masked_output_min_match_frac: float = 0.125
+
+
+@dataclass
+class ExecConfig:
+    """reference: Shared/Config.h:70-130 (ExecConfig)."""
+
+    enable_multifrag_results: bool = True
+    # external-executor escape hatch: a query the native engine rejects
+    # re-runs through in-memory SQLite over the session's tables
+    # (reference: ExternalExecutor.h:50, exec.enable_interop,
+    # fallback seam RelAlgExecutor.cpp:443-449).  Off by default like
+    # the reference; an escape hatch, not a performance path.
+    enable_interop: bool = False
+    # fragment skipping via per-fragment min/max stats (reference:
+    # Execute.h:540 skipFragmentPair); exec/prune.py
+    enable_fragment_skipping: bool = True
+    # measured-feedback route tuning near cost-model tier boundaries
+    # (exec/feedback.py — explore each candidate route once with synced
+    # timing, then stick with the measured winner)
+    enable_route_feedback: bool = True
+    # fragment-streamed aggregation: scans whose used columns exceed
+    # this many bytes execute per fragment-group chunk with partial-slot
+    # merging, so tables larger than HBM stream through the device
+    # (reference: QueryFragmentDescriptor.h:64 per-fragment kernels).
+    # 0 = auto (half the device cache budget)
+    scan_stream_bytes: int = 0
+    allow_retry: bool = True  # overflow / out-of-slots retry ladder
+    streaming_topn_max: int = 100000
+    # (parallel_top_min dissolved: CPU-thread top-k tiling has no
+    # analog here — lax.top_k is a single fused device op)
+    # eager aggregation (Yan/Larson): push a decomposable group-by below
+    # an INNER join when its probe-side keys cover the join keys — the
+    # pre-aggregate replaces the probe-side random-gather join traffic
+    # with a bounded-key dense reduction (optimizer.py
+    # push_aggregation_below_join; reference analog: the join/agg
+    # orderings RelAlgDag coalescing preserves are re-derived here as a
+    # cost-gated rewrite)
+    enable_eager_aggregation: bool = True
+    eager_agg_min_rows: int = 1 << 23  # est probe rows below: skip
+    eager_agg_min_ratio: float = 2.0  # est probe/build ratio below: skip
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+    group_by: GroupByConfig = field(default_factory=GroupByConfig)
+    join: JoinConfig = field(default_factory=JoinConfig)
+
+
+@dataclass
+class StorageConfig:
+    """reference: ArrowStorage defaults (ArrowStorage.h:40)."""
+
+    fragment_size: int = 1 << 25  # 32M rows, matching the reference default
+    # (enable_lazy_dict_materialization dissolved: dictionaries build in
+    # the C++ importer at ingest; device transfer of codes is already
+    # lazy via _LazyScanColumns)
+    # device column-cache budget; None = storage.memory.default_budget()
+    # (a fraction of the device allocator's limit)
+    device_cache_budget_bytes: Optional[int] = None
+    # ingest/compute overlap: as each column's host decode finishes its
+    # device transfer is issued on a background worker, so decode of the
+    # next column overlaps the transfer (reference: ColumnFetcher
+    # overlaps per-fragment fetch with kernels, ColumnFetcher.h:42-90)
+    prefetch_device: bool = True
+
+
+@dataclass
+class CacheConfig:
+    """reference: Shared/Config.h:166-175."""
+
+    enable_hashtable_cache: bool = True
+    hashtable_cache_size: int = 1 << 32
+    enable_compiled_cache: bool = True  # rely on jax jit cache
+
+
+@dataclass
+class DebugConfig:
+    """reference: Shared/Config.h:176-190 + Logger/Logger.h:95."""
+
+    enable_debug_timer: bool = False
+    log_dir: str = "hdk_jax_log"
+    # severity ladder DEBUG4..DEBUG1 < INFO < WARNING < ERROR < FATAL
+    log_severity: str = "WARNING"
+    log_to_file: bool = False
+    explain: bool = False
+
+
+@dataclass
+class DistConfig:
+    """Multi-chip/multi-host settings — new vs the reference (it is
+    single-node; see SURVEY.md §2.8)."""
+
+    enable: bool = False  # shard scans over all local devices
+    mesh_axis: str = "frag"
+    num_devices: int = 0  # 0 = all visible devices (scaling benches cap it)
+    # (shuffle_partitions_per_device dissolved: all_to_all exchanges one
+    # buffer per (src, dst) pair)
+    # skew probe for DISTINCT-class aggregation routing: sample this many
+    # key-prefix rows; hot share > threshold/num_shards selects the
+    # skew-proof pair-split shuffle (executor._probe_hot_key_share)
+    skew_sample_size: int = 1 << 16
+    heavy_hitter_threshold: float = 0.25  # fraction of one partition budget
+    # joins: build sides up to this many rows replicate to every shard
+    # (reference analog: per-device hash-table replicas,
+    # PerfectJoinHashTable.cpp:370-400); larger builds shuffle-partition
+    broadcast_join_threshold: int = 1 << 22
+    # multi-host job membership: when enabled, the session joins via
+    # jax.distributed.initialize before building the mesh
+    # (parallel/mesh.init_distributed).  On GPU hosts set all three, or
+    # run under a launcher that sets JAX's cluster environment; nothing
+    # is detected otherwise
+    multi_host: bool = False
+    coordinator_address: str = ""  # e.g. "host0:1234"; "" = from launcher
+    num_processes: int = 0         # 0 = from launcher
+    process_id: int = -1           # -1 = from launcher
+
+
+@dataclass
+class Config:
+    """Root config (reference: Shared/Config.h:191)."""
+
+    exec: ExecConfig = field(default_factory=ExecConfig)
+    storage: StorageConfig = field(default_factory=StorageConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
+    debug: DebugConfig = field(default_factory=DebugConfig)
+    dist: DistConfig = field(default_factory=DistConfig)
+
+
+def _set_dotted(cfg: Any, path: str, value: Any) -> bool:
+    head, _, rest = path.partition(".")
+    if not hasattr(cfg, head):
+        return False
+    if rest:
+        return _set_dotted(getattr(cfg, head), rest, value)
+    setattr(cfg, head, value)
+    return True
+
+
+def _set_flat(cfg: Any, name: str, value: Any) -> bool:
+    """Search the tree for a field with this leaf name (kwargs style,
+    like pyhdk's flat keyword args)."""
+    for f in fields(cfg):
+        sub = getattr(cfg, f.name)
+        if f.name == name and not is_dataclass(sub):
+            setattr(cfg, f.name, value)
+            return True
+        if is_dataclass(sub) and _set_flat(sub, name, value):
+            return True
+    return False
+
+
+def build_config(**kwargs: Any) -> Config:
+    """Build a Config from flat or dotted keyword args, e.g.
+    ``build_config(fragment_size=1<<20, **{"exec.watchdog.enable": True})``.
+    Unknown keys raise, matching ConfigBuilder's strict flag parsing."""
+    cfg = Config()
+    for key, value in kwargs.items():
+        ok = _set_dotted(cfg, key, value) if "." in key else _set_flat(cfg, key, value)
+        if not ok:
+            raise ValueError(f"unknown config option: {key!r}")
+    return cfg

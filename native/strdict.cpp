@@ -1,13 +1,13 @@
-// Native string dictionary: C++ core for hdk_tpu's dictionary encoding.
+// Native string dictionary: C++ core for hdk_jax's dictionary encoding.
 //
 // Reference: omniscidb/StringDictionary/StringDictionary.cpp — an
 // append-only string<->int32 interning map with bulk encode as the
 // import hot path (getOrAddBulk, StringDictionary.h:126).  This module
 // provides the same core (unordered_map + arena of strings) behind a
-// minimal CPython C API surface; hdk_tpu/storage/dictionary.py uses it
+// minimal CPython C API surface; hdk_jax/storage/dictionary.py uses it
 // when importable and falls back to pure Python otherwise.
 //
-// API (module hdk_tpu_native):
+// API (module hdk_jax_native):
 //   dict_new() -> capsule
 //   dict_len(capsule) -> int
 //   dict_get_or_add(capsule, str) -> int
@@ -266,8 +266,8 @@ PyObject* dict_bulk_get_or_add(PyObject*, PyObject* args) {
   }
   unsigned hw = std::thread::hardware_concurrency();
   unsigned nthreads = hw ? std::min(hw, 16u) : 1u;
-  // HDK_TPU_DICT_THREADS=1 forces the serial path (A/B measurement)
-  if (const char* env = getenv("HDK_TPU_DICT_THREADS")) {
+  // HDK_JAX_DICT_THREADS=1 forces the serial path (A/B measurement)
+  if (const char* env = getenv("HDK_JAX_DICT_THREADS")) {
     long v = strtol(env, nullptr, 10);
     if (v >= 1 && v <= 64) nthreads = static_cast<unsigned>(v);
   }
@@ -401,9 +401,9 @@ PyMethodDef methods[] = {
     {nullptr, nullptr, 0, nullptr},
 };
 
-PyModuleDef module = {PyModuleDef_HEAD_INIT, "hdk_tpu_native",
-                      "native core for hdk_tpu", -1, methods};
+PyModuleDef module = {PyModuleDef_HEAD_INIT, "hdk_jax_native",
+                      "native core for hdk_jax", -1, methods};
 
 }  // namespace
 
-PyMODINIT_FUNC PyInit_hdk_tpu_native() { return PyModule_Create(&module); }
+PyMODINIT_FUNC PyInit_hdk_jax_native() { return PyModule_Create(&module); }

@@ -1,5 +1,5 @@
 """Worker script for test_multihost.py: one process of a simulated
-2-process (4-device) job.  Validates hdk_tpu.parallel.mesh's
+2-process (4-device) job.  Validates hdk_jax.parallel.mesh's
 multi-host path — jax.distributed.initialize membership, a global mesh
 over all hosts' devices, and a distributed group-by whose psum crosses
 the process boundary (SURVEY.md §2.8; the reference is single-node)."""
@@ -15,7 +15,7 @@ jax.config.update("jax_enable_x64", True)
 def main() -> None:
     pid = int(sys.argv[1])
     port = sys.argv[2]
-    from hdk_tpu.parallel import mesh as pmesh
+    from hdk_jax.parallel import mesh as pmesh
 
     pmesh.init_distributed(f"127.0.0.1:{port}", 2, pid)
     assert jax.process_count() == 2, jax.process_count()
@@ -28,11 +28,11 @@ def main() -> None:
     ndev = mesh.devices.size
     assert ndev == 4, ndev
 
-    from hdk_tpu.exec.groupby import AggSpec, PerfectHashLayout
-    from hdk_tpu.exec.masked import MaskedCol
-    from hdk_tpu.ir.expr import AggKind
-    from hdk_tpu import types as t
-    from hdk_tpu.parallel.dist_groupby import dist_groupby_perfect
+    from hdk_jax.exec.groupby import AggSpec, PerfectHashLayout
+    from hdk_jax.exec.masked import MaskedCol
+    from hdk_jax.ir.expr import AggKind
+    from hdk_jax import types as t
+    from hdk_jax.parallel.dist_groupby import dist_groupby_perfect
 
     # rows 0..15 split across processes (8 local each); key = row % 4
     local = np.arange(8, dtype=np.int64) + pid * 8
@@ -56,9 +56,9 @@ def main() -> None:
     # gathered result (multi-controller SPMD: every process runs the
     # identical program over its own table shard) ---------------------
     import pandas as pd
-    import hdk_tpu
+    import hdk_jax
 
-    hdk = hdk_tpu.HDK(**{"dist.enable": True})
+    hdk = hdk_jax.HDK(**{"dist.enable": True})
     n_total = 1000
     rng = np.random.default_rng(5)
     k_all = rng.integers(0, 7, n_total)

@@ -6,13 +6,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture()
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture()
@@ -143,6 +143,6 @@ def test_sql_unnest_scope_and_alias(hdk):
     assert [list(x) for x in res2["xs"]] == [[4, 5], [4, 5]]
     assert res2["e"].tolist() == [4, 5]
     # UNNEST cannot be the base FROM item
-    from hdk_tpu.sql.lexer import SqlError
+    from hdk_jax.sql.lexer import SqlError
     with pytest.raises(SqlError):
         hdk.sql("SELECT * FROM UNNEST(xs)")

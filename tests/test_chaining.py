@@ -5,13 +5,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -67,8 +67,8 @@ def test_shared_subtree_executes_once(ht):
 
 
 def test_optimizer_identity_projection_removed(ht):
-    from hdk_tpu.exec.optimizer import eliminate_identity_projections
-    from hdk_tpu.ir import node as nd
+    from hdk_jax.exec.optimizer import eliminate_identity_projections
+    from hdk_jax.ir import node as nd
 
     proj = ht.proj()  # identity
     dag = nd.QueryDag(nd.Filter(proj.node, (proj["v"] > 0).expr))
@@ -78,11 +78,11 @@ def test_optimizer_identity_projection_removed(ht):
 
 
 def test_optimizer_filter_fold(ht):
-    from hdk_tpu.exec.optimizer import fold_filters
-    from hdk_tpu.ir import node as nd
+    from hdk_jax.exec.optimizer import fold_filters
+    from hdk_jax.ir import node as nd
 
     f1 = nd.Filter(ht.node, (ht["v"] > 1).expr)
-    import hdk_tpu.builder as b
+    import hdk_jax.builder as b
 
     cond2 = b._rebase((ht["v"] < 6).expr, ht.node, f1)
     f2 = nd.Filter(f1, cond2)
@@ -103,10 +103,10 @@ def test_head(ht):
 
 
 def test_timer_report(hdk, ht):
-    hdk_tpu.enable_debug_timer(True)
+    hdk_jax.enable_debug_timer(True)
     try:
         ht.agg("g", "count").run()
-        rep = hdk_tpu.timer_report()
+        rep = hdk_jax.timer_report()
     finally:
-        hdk_tpu.enable_debug_timer(False)
+        hdk_jax.enable_debug_timer(False)
     assert rep is None or "ms" in rep

@@ -1,17 +1,17 @@
-"""Collective accounting (utils/commlog.py) + ICI scaling model
-(parallel/ici_model.py): the VERDICT-r2 scaling-evidence artifact."""
+"""Collective accounting (utils/commlog.py): bytes each collective
+moves per device, recorded at trace time."""
 
 import numpy as np
 import pytest
 
-import hdk_tpu
-from hdk_tpu.utils import commlog
+import hdk_jax
+from hdk_jax.utils import commlog
 
 
 def test_capture_records_dist_shuffle(rng):
     """A dist high-NDV group-by with shuffle routes records its
     all_to_all bytes at trace time."""
-    hdk = hdk_tpu.HDK(**{"dist.enable": True, "dist.num_devices": 4})
+    hdk = hdk_jax.HDK(**{"dist.enable": True, "dist.num_devices": 4})
     n = 40_000
     hdk.import_pydict({
         "k": rng.integers(0, n, n),   # high NDV -> shuffle route
@@ -38,24 +38,8 @@ def test_summarize_wire_model():
     assert s["wire_bytes_per_device"] == 600 + 150 + 30
 
 
-def test_ici_model_prediction():
-    from hdk_tpu.parallel.ici_model import IciModel
-
-    m = IciModel(ici_bytes_per_sec=200e9, alpha_per_collective=5e-6)
-    # compute-dominated query: near-perfect predicted efficiency
-    recs = [{"op": "all_to_all", "axis": "frag", "bytes_per_device": 1 << 20}]
-    p = m.predict(1.0, recs, 8)
-    assert p["predicted_efficiency"] > 0.99
-    # wire-dominated: tiny compute, huge payload -> low efficiency
-    recs = [{"op": "all_to_all", "axis": "frag",
-             "bytes_per_device": 10 << 30}]
-    p2 = m.predict(0.01, recs, 8)
-    assert p2["predicted_efficiency"] < 0.1
-    assert p2["t_wire_s"] > p2["t_compute_s"]
-
-
 def test_capture_empty_without_dist(rng):
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     hdk.import_pydict({"k": rng.integers(0, 5, 100)}, name="cl_l")
     with commlog.capture() as records:
         hdk.scan("cl_l").agg("k", "count").run().block()
@@ -66,7 +50,7 @@ def test_dense_perfect_route_records_psum(rng):
     """Perfect-layout algebraic dist aggregation routes through the
     EXPLICIT psum combine (dense_psum) — the round-3 blind spot where
     GSPMD inserted the AllReduce invisibly (VERDICT r3 missing #1)."""
-    hdk = hdk_tpu.HDK(**{"dist.enable": True, "dist.num_devices": 4})
+    hdk = hdk_jax.HDK(**{"dist.enable": True, "dist.num_devices": 4})
     n = 40_000
     hdk.import_pydict({
         "k": rng.integers(0, 64, n),  # bounded -> perfect layout
@@ -95,7 +79,7 @@ def test_commlog_reconciles_with_compiled_hlo(rng):
     from jax.sharding import Mesh, PartitionSpec as P
     from jax import shard_map
 
-    from hdk_tpu.utils import hlocheck
+    from hdk_jax.utils import hlocheck
 
     devs = np.array(jax.devices()[:4])
     mesh = Mesh(devs, ("frag",))

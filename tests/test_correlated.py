@@ -7,7 +7,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 
 from harness import assert_frames_match
 
@@ -27,7 +27,7 @@ def env(rng):
     wn = dn["w"].astype("float64").copy()
     wn[rng.random(300) < 0.15] = np.nan
     dn["wn"] = wn
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     hdk.import_pandas(df, name="a")
     hdk.import_pandas(dn, name="b")
     con = sqlite3.connect(":memory:")

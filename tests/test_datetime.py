@@ -5,12 +5,12 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -201,7 +201,7 @@ def test_extract_year_bounded_fast_path_boundaries(hdk):
     fill = calendar.timegm((2011, 1, 1, 0, 0, 0)) + rng.integers(
         0, span, 5000)
     secs = np.concatenate([np.array(edges, np.int64), fill])
-    from hdk_tpu import types as tt
+    from hdk_jax import types as tt
 
     ht = hdk.import_pydict(
         {"ts": secs}, name="ybf_t",
@@ -215,7 +215,7 @@ def test_extract_year_wide_span_falls_back(hdk):
     """>64-year spans use the civil-calendar kernel — same answers."""
     rng = np.random.default_rng(6)
     secs = rng.integers(-2_000_000_000, 4_000_000_000, 4000)  # ~1906-2096
-    from hdk_tpu import types as tt
+    from hdk_jax import types as tt
 
     ht = hdk.import_pydict(
         {"ts": secs}, name="ybw_t",

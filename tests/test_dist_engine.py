@@ -6,7 +6,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 import jax
 
 from harness import assert_frames_match
@@ -25,8 +25,8 @@ def pair(rng):
         "v": rng.normal(size=n) * 10,
         "s": rng.choice(["a", "b", "c"], n),
     })
-    dist = hdk_tpu.HDK(**{"dist.enable": True})
-    solo = hdk_tpu.HDK()
+    dist = hdk_jax.HDK(**{"dist.enable": True})
+    solo = hdk_jax.HDK()
     dist.import_pandas(df, name="t")
     solo.import_pandas(df, name="t")
     return dist, solo, df
@@ -129,9 +129,9 @@ def test_merge_cap_overflow_widens_and_retries(rng):
     never silently merged tail groups (ADVICE r1 / VERDICT r1 #2)."""
     # group_cap = max(64, min(default_max_groups//ndev, rows/ndev*2)) = 64;
     # ~1000 distinct keys over 8 shards => ~125 keys/owner-shard > 64
-    sess = hdk_tpu.HDK(**{"dist.enable": True,
+    sess = hdk_jax.HDK(**{"dist.enable": True,
                           "exec.group_by.default_max_groups": 256})
-    solo = hdk_tpu.HDK()
+    solo = hdk_jax.HDK()
     n = 8 * 500
     df = pd.DataFrame({
         "k": (rng.integers(0, 1000, n) * 2**33 + 5).astype(np.int64),
@@ -162,8 +162,8 @@ def join_pair(rng):
     })
     # duplicate build keys: OneToMany expansion
     dim_dup = pd.concat([dim, dim.head(40)], ignore_index=True)
-    dist = hdk_tpu.HDK(**{"dist.enable": True})
-    solo = hdk_tpu.HDK()
+    dist = hdk_jax.HDK(**{"dist.enable": True})
+    solo = hdk_jax.HDK()
     for s in (dist, solo):
         s.import_pandas(fact, name="f")
         s.import_pandas(dim, name="d")
@@ -213,9 +213,9 @@ def test_dist_semi_anti_join(join_pair):
 
 def test_dist_join_partitioned(rng):
     """Build side above the broadcast threshold -> shuffle-both-sides."""
-    dist = hdk_tpu.HDK(**{"dist.enable": True,
+    dist = hdk_jax.HDK(**{"dist.enable": True,
                           "dist.broadcast_join_threshold": 64})
-    solo = hdk_tpu.HDK()
+    solo = hdk_jax.HDK()
     n, m = 8 * 300, 8 * 200
     fact = pd.DataFrame({"k": rng.integers(0, 1000, n).astype(np.int64),
                          "v": rng.integers(0, 50, n).astype(np.int64)})
@@ -310,9 +310,9 @@ def test_dist_count_distinct_skewed_small_caps(rng):
     """Zipf-skewed COUNT DISTINCT on the 8-device mesh with small group
     caps: the pair-split route spreads the hot key by (key, value) hash,
     so results are exact where a key-hash shuffle would overflow."""
-    dist = hdk_tpu.HDK(**{"dist.enable": True,
+    dist = hdk_jax.HDK(**{"dist.enable": True,
                           "exec.group_by.default_max_groups": 512})
-    solo = hdk_tpu.HDK()
+    solo = hdk_jax.HDK()
     n = 8 * 700
     df = _skewed_frame(rng, n)
     dist.import_pandas(df, name="zipf")
@@ -331,9 +331,9 @@ def test_dist_count_distinct_skewed_small_caps(rng):
 def test_dist_distinct_split_uniform_keys(rng):
     """The pair-split route must be exact on unskewed data too (forced
     via heavy_hitter_threshold=0)."""
-    dist = hdk_tpu.HDK(**{"dist.enable": True,
+    dist = hdk_jax.HDK(**{"dist.enable": True,
                           "dist.heavy_hitter_threshold": 0.0})
-    solo = hdk_tpu.HDK()
+    solo = hdk_jax.HDK()
     n = 8 * 500
     df = pd.DataFrame({
         "k": rng.integers(0, 200, n).astype(np.int64),
@@ -354,9 +354,9 @@ def test_dist_distinct_split_uniform_keys(rng):
 def test_dist_distinct_raw_route_below_threshold(rng):
     """With the hot-key probe under threshold the cheaper raw shuffle
     runs (one all_to_all) and stays exact."""
-    dist = hdk_tpu.HDK(**{"dist.enable": True,
+    dist = hdk_jax.HDK(**{"dist.enable": True,
                           "dist.heavy_hitter_threshold": 1e9})
-    solo = hdk_tpu.HDK()
+    solo = hdk_jax.HDK()
     n = 8 * 400
     df = pd.DataFrame({
         "k": rng.integers(0, 64, n).astype(np.int64),
@@ -378,8 +378,8 @@ def test_dist_distinct_raw_route_below_threshold(rng):
 def test_dist_multi_operand_distinct_falls_back(rng):
     """COUNT(DISTINCT a) + COUNT(DISTINCT b) (different operands) is not
     pair-splittable; the raw shuffle handles it exactly."""
-    dist = hdk_tpu.HDK(**{"dist.enable": True})
-    solo = hdk_tpu.HDK()
+    dist = hdk_jax.HDK(**{"dist.enable": True})
+    solo = hdk_jax.HDK()
     n = 8 * 300
     df = pd.DataFrame({
         "k": rng.integers(0, 40, n).astype(np.int64),
@@ -454,7 +454,7 @@ def test_dist_fragment_pruning(rng):
         "dt": np.arange(n, dtype=np.int64),  # monotone: perfect stats
         "v": rng.normal(size=n),
     })
-    dist = hdk_tpu.HDK(**{"dist.enable": True,
+    dist = hdk_jax.HDK(**{"dist.enable": True,
                           "storage.fragment_size": 1000})
     t = dist.import_pandas(df, name="pr_t")
     res = (t.filter((t["dt"] >= 3000) & (t["dt"] < 4000))
@@ -474,7 +474,7 @@ def test_dist_fragment_streaming(rng):
         "g": rng.integers(0, 7, n).astype(np.int64),
         "v": rng.normal(size=n),
     })
-    dist = hdk_tpu.HDK(**{"dist.enable": True,
+    dist = hdk_jax.HDK(**{"dist.enable": True,
                           "storage.fragment_size": 1000,
                           "exec.scan_stream_bytes": 32_000})
     t = dist.import_pandas(df, name="fsd_t")

@@ -5,17 +5,17 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu  # noqa: F401  (enables x64 before jax use)
+import hdk_jax  # noqa: F401  (enables x64 before jax use)
 import jax
 import jax.numpy as jnp
 
-from hdk_tpu import types as t
-from hdk_tpu.exec import groupby as gb
-from hdk_tpu.exec.masked import MaskedCol
-from hdk_tpu.ir.expr import AggKind
-from hdk_tpu.parallel import dist_groupby as dg
-from hdk_tpu.parallel import shuffle as shf
-from hdk_tpu.parallel.mesh import make_mesh
+from hdk_jax import types as t
+from hdk_jax.exec import groupby as gb
+from hdk_jax.exec.masked import MaskedCol
+from hdk_jax.ir.expr import AggKind
+from hdk_jax.parallel import dist_groupby as dg
+from hdk_jax.parallel import shuffle as shf
+from hdk_jax.parallel.mesh import make_mesh
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 2, reason="needs multiple (virtual) devices")
@@ -145,7 +145,7 @@ def test_null_keys_group_together_across_shards(mesh, rng):
 
 def test_two_phase_skew_proof(mesh, rng):
     """Heavy-hitter keys collapse in phase 1 — tiny shuffle caps suffice."""
-    from hdk_tpu.parallel.dist_groupby import dist_groupby_two_phase
+    from hdk_jax.parallel.dist_groupby import dist_groupby_two_phase
 
     n = 8 * 512
     # 90% of rows share ONE key: raw shuffle would overflow tiny caps
@@ -192,7 +192,7 @@ def test_raw_shuffle_overflows_on_same_skew(mesh, rng):
 
 
 def test_dist_sort(mesh, rng):
-    from hdk_tpu.parallel.dist_sort import dist_sort
+    from hdk_jax.parallel.dist_sort import dist_sort
 
     n = 8 * 512
     vals_np = rng.normal(size=n)
@@ -214,7 +214,7 @@ def test_dist_sort(mesh, rng):
 
 
 def test_dist_sort_desc(mesh, rng):
-    from hdk_tpu.parallel.dist_sort import dist_sort
+    from hdk_jax.parallel.dist_sort import dist_sort
 
     n = 8 * 256
     vals_np = rng.integers(0, 10_000, n)

@@ -5,7 +5,7 @@ the combine aggregate must restore the original multiplicities).
 
 Reference semantics target: aggregates over joins in
 omniscidb/Tests/ArrowBasedExecuteTest.cpp (GROUP BY over JOIN blocks);
-the rewrite itself is the TPU-native plan inversion documented at
+the rewrite itself is the plan inversion documented at
 optimizer.push_aggregation_below_join.
 """
 
@@ -13,13 +13,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    h = hdk_tpu.HDK()
+    h = hdk_jax.HDK()
     # fire on tiny test tables
     h.config.exec.eager_agg_min_rows = 64
     h.config.exec.eager_agg_min_ratio = 1.0
@@ -159,7 +159,7 @@ def test_no_rewrite_for_distinct(hdk, data):
 
 
 def test_disabled_by_config(data):
-    h2 = hdk_tpu.HDK()
+    h2 = hdk_jax.HDK()
     h2.config.exec.enable_eager_aggregation = False
     h2.config.exec.eager_agg_min_rows = 64
     ldf = data[0]
@@ -252,7 +252,7 @@ def test_eager_agg_in_dist_session():
     ldf = pd.DataFrame({"fk": rng.integers(0, n_r, n_l),
                         "val": rng.normal(size=n_l)})
     rdf = pd.DataFrame({"pk": np.arange(n_r), "cat": np.arange(n_r) % 4})
-    h = hdk_tpu.HDK(**{"dist.enable": True})
+    h = hdk_jax.HDK(**{"dist.enable": True})
     h.config.exec.eager_agg_min_rows = 64
     h.config.exec.eager_agg_min_ratio = 1.0
     h.import_pandas(ldf, name="ea_dl")
@@ -276,7 +276,7 @@ def test_eager_agg_in_dist_session():
 # ---------------------------------------------------------------------------
 
 def test_plan_choice_feedback_state_machine():
-    from hdk_tpu.exec.feedback import PlanChoiceFeedback, RouteFeedback
+    from hdk_jax.exec.feedback import PlanChoiceFeedback, RouteFeedback
 
     fb = PlanChoiceFeedback(RouteFeedback(enabled=True))
     sig = "plan-x"
@@ -301,7 +301,7 @@ def test_plan_choice_feedback_state_machine():
 
 
 def test_rewrite_self_disables_when_measured_slower(data):
-    sess = hdk_tpu.HDK()
+    sess = hdk_jax.HDK()
     sess.config.exec.eager_agg_min_rows = 64
     sess.config.exec.eager_agg_min_ratio = 1.0
     lhs, rhs, _ = data
@@ -315,7 +315,7 @@ def test_rewrite_self_disables_when_measured_slower(data):
     real_execute = type(ex).execute
 
     def spy(dag):
-        from hdk_tpu.exec.explain import explain_dag
+        from hdk_jax.exec.explain import explain_dag
 
         executed_plans.append(explain_dag(dag.root))
         return real_execute(ex, dag)

@@ -5,8 +5,8 @@ group-by routes with synced timing, then repeats the measured winner."""
 import numpy as np
 import pytest
 
-import hdk_tpu
-from hdk_tpu.exec.feedback import RouteFeedback
+import hdk_jax
+from hdk_jax.exec.feedback import RouteFeedback
 
 
 def test_choose_explores_then_exploits():
@@ -28,7 +28,7 @@ def test_choose_explores_then_exploits():
 def test_groupby_routes_explored_and_settled(rng):
     """A perfect-layout group-by in the tunable window runs 'perfect'
     then 'sort' on the first two repetitions (measured), then settles."""
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     n = 1 << 17
     t = hdk.import_pydict({
         "k": rng.integers(0, 1000, n),   # entries ~1000: in (512, 4096]
@@ -56,7 +56,7 @@ def test_groupby_routes_explored_and_settled(rng):
 
 
 def test_feedback_disabled(rng):
-    hdk = hdk_tpu.HDK(**{"exec.enable_route_feedback": False})
+    hdk = hdk_jax.HDK(**{"exec.enable_route_feedback": False})
     n = 1 << 17
     t = hdk.import_pydict({"k": rng.integers(0, 1000, n)}, name="fb_off")
     for _ in range(2):
@@ -70,9 +70,9 @@ def test_join_route_feedback_explores_and_settles(rng):
     contract as the group-by boundary.  First three repetitions of the
     plan signature explore one candidate each (timed warm, outputs
     forced); the fourth runs the measured winner."""
-    import hdk_tpu
+    import hdk_jax
 
-    h = hdk_tpu.HDK()
+    h = hdk_jax.HDK()
     h.config.exec.join.spread_join_min_rows = 50
     n = 70_000
     lhs = {"k": rng.integers(0, 64, n).astype(np.int64),
@@ -111,9 +111,9 @@ def test_join_route_feedback_inadmissible_poisoned(rng):
     """A candidate whose admission fails (duplicate build keys kill
     both perfect-table routes) is recorded as +inf once and never
     re-explored — repetitions settle on the hash route."""
-    import hdk_tpu
+    import hdk_jax
 
-    h = hdk_tpu.HDK()
+    h = hdk_jax.HDK()
     n = 70_000
     lhs = {"k": rng.integers(0, 64, n).astype(np.int64)}
     rhs = {"k": np.concatenate([np.arange(64), np.arange(64)]),

@@ -7,14 +7,14 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture()
 def hdk():
     # tiny fragments + a tiny stream budget force multi-chunk execution
-    return hdk_tpu.HDK(**{"storage.fragment_size": 1000,
+    return hdk_jax.HDK(**{"storage.fragment_size": 1000,
                           "exec.scan_stream_bytes": 32_000})
 
 
@@ -67,7 +67,7 @@ def test_nogroup_stream(hdk, ht, data):
 
 
 def test_stream_matches_unstreamed(hdk, data):
-    big = hdk_tpu.HDK()  # default budget: whole-column execution
+    big = hdk_jax.HDK()  # default budget: whole-column execution
     a = big.import_pandas(data, name="fs_ref")
     exp = a.agg("g", "count", "sum(i)", "stddev(v)").run().to_pandas()
     ht2 = hdk.import_pandas(data, name="fs_t2")
@@ -100,7 +100,7 @@ def test_window_in_chain_bypasses_stream(hdk, ht, data):
 # ---------------------------------------------------------------------------
 
 def test_dynamic_watchdog_forces_chunking(data):
-    sess = hdk_tpu.HDK(**{"storage.fragment_size": 1000})
+    sess = hdk_jax.HDK(**{"storage.fragment_size": 1000})
     ht = sess.import_pandas(data, name="wd_t")
     # without a time budget: fits the byte budget, no streaming
     ht.agg("g", "count", "sum(v)").run().to_pandas()
@@ -116,9 +116,9 @@ def test_dynamic_watchdog_forces_chunking(data):
 
 def test_dynamic_watchdog_interrupts_mid_step(data):
     import pytest as _pytest
-    from hdk_tpu.exec.scalar import ExecError
+    from hdk_jax.exec.scalar import ExecError
 
-    sess = hdk_tpu.HDK(**{"storage.fragment_size": 1000})
+    sess = hdk_jax.HDK(**{"storage.fragment_size": 1000})
     ht = sess.import_pandas(data, name="wd_t2")
     with _pytest.raises(ExecError, match="watchdog"):
         # 0 < limit << chunk time: the mid-step check fires

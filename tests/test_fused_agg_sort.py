@@ -5,13 +5,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +85,7 @@ def test_fused_baseline_layout_high_ndv(ht, data):
 
 
 def test_fused_overflow_retry(rng):
-    session = hdk_tpu.HDK(**{"exec.group_by.default_max_groups": 16})
+    session = hdk_jax.HDK(**{"exec.group_by.default_max_groups": 16})
     n = 4000
     df = pd.DataFrame({"k": (rng.integers(0, 700, n) * 2**33).astype(np.int64),
                        "v": rng.normal(size=n)})
@@ -124,7 +124,7 @@ def test_agg_used_twice_not_fused(hdk, data):
 # ---------------------------------------------------------------------------
 
 def test_dist_fused_agg_sort_route_and_result(data):
-    dist = hdk_tpu.HDK(**{"dist.enable": True})
+    dist = hdk_jax.HDK(**{"dist.enable": True})
     ht = dist.import_pandas(data, name="q4_dist")
     res = (ht.agg(["pc", "yr", "dist"], "count")
            .sort(("count", "desc")).run().to_pandas())
@@ -136,7 +136,7 @@ def test_dist_fused_agg_sort_route_and_result(data):
 
 
 def test_dist_fused_agg_sort_limit(data):
-    dist = hdk_tpu.HDK(**{"dist.enable": True})
+    dist = hdk_jax.HDK(**{"dist.enable": True})
     ht = dist.import_pandas(data, name="q4_dist_lim")
     res = (ht.agg(["pc", "yr", "dist"], "count")
            .sort(("count", "desc"), limit=10).run().to_pandas())
@@ -153,8 +153,8 @@ def test_dist_fused_agg_sort_avg_asc_nulls(rng):
         "v": rng.normal(size=n),
     })
     df.loc[rng.permutation(n)[:500], "v"] = np.nan
-    dist = hdk_tpu.HDK(**{"dist.enable": True})
-    solo = hdk_tpu.HDK()
+    dist = hdk_jax.HDK(**{"dist.enable": True})
+    solo = hdk_jax.HDK()
     for s, name in ((dist, "fd_a"), (solo, "fd_b")):
         s.import_pandas(df, name=name)
     q = "SELECT k, AVG(v) AS m, SUM(v) AS s FROM {} GROUP BY k ORDER BY m"

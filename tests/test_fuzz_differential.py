@@ -9,7 +9,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
@@ -27,7 +27,7 @@ def env():
         "f": np.round(rng.normal(0, 10, N), 4),
         "g": rng.integers(0, 3, N),
     })
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     t = hdk.import_pandas(df, name="fz")
     return hdk, t, df
 

@@ -14,8 +14,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
-from hdk_tpu import types as t
+import hdk_jax
+from hdk_jax import types as t
 from harness import assert_frames_match
 
 N = 1500
@@ -40,7 +40,7 @@ def jenv():
         "j": rng.integers(0, 50, 120),
         "w": np.round(rng.normal(0, 2, 120), 4),
     })
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     hdk.config.exec.join.spread_join_min_rows = 50  # exercise the route
     tl = hdk.import_pandas(lhs, name="fw_l")
     tr = hdk.import_pandas(rhs, name="fw_r")
@@ -139,7 +139,7 @@ def wenv():
         "o": rng.integers(0, 200, N),
         "v": np.round(rng.normal(0, 5, N), 4),
     })
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     ht = hdk.import_pandas(df, name="fw_w")
     return hdk, ht, df
 
@@ -198,7 +198,7 @@ def denv():
         "g": rng.integers(0, 6, N),
         "v": np.round(rng.normal(10, 3, N), 4),
     })
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     ht = hdk.import_pydict(
         {k: df[k].to_numpy() for k in df}, name="fw_dt",
         schema={"ts": t.timestamp(t.TimeUnit.SECOND, False)})
@@ -261,7 +261,7 @@ def senv():
         "s": words[rng.integers(0, len(words), N)],
         "v": rng.integers(0, 50, N),
     })
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     ht = hdk.import_pandas(df, name="fw_s")
     return hdk, ht, df
 
@@ -348,7 +348,7 @@ def distenv():
         "k": np.arange(500),
         "w": rng.integers(0, 20, 500),
     })
-    hdk = hdk_tpu.HDK(**{"dist.enable": True, "dist.num_devices": 4})
+    hdk = hdk_jax.HDK(**{"dist.enable": True, "dist.num_devices": 4})
     td = hdk.import_pandas(df, name="fw_dist")
     tdim = hdk.import_pandas(dim, name="fw_dim")
     return hdk, td, tdim, df, dim
@@ -417,10 +417,10 @@ def eenv():
         "cat": rng.integers(0, 5, 44),
         "rw": np.round(rng.normal(1, 2, 44), 4),
     })
-    on_ = hdk_tpu.HDK()
+    on_ = hdk_jax.HDK()
     on_.config.exec.eager_agg_min_rows = 32
     on_.config.exec.eager_agg_min_ratio = 1.0
-    off = hdk_tpu.HDK()
+    off = hdk_jax.HDK()
     off.config.exec.enable_eager_aggregation = False
     for h, suf in ((on_, "on"), (off, "off")):
         h.import_pandas(lhs, name="fe_l")

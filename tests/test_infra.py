@@ -3,13 +3,13 @@
 
 import pytest
 
-import hdk_tpu
-from hdk_tpu.config import build_config
+import hdk_jax
+from hdk_jax.config import build_config
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +35,7 @@ def test_just_explain_option(hdk, ht):
 
 
 def test_watchdog_row_budget():
-    session = hdk_tpu.HDK(**{"exec.watchdog.enable": True,
+    session = hdk_jax.HDK(**{"exec.watchdog.enable": True,
                              "exec.watchdog.max_rows_per_step": 2})
     ht = session.import_pydict({"a": [1, 2, 3, 4, 5]}, name="wd_t")
     with pytest.raises(Exception, match="watchdog"):
@@ -61,20 +61,20 @@ def test_code_cache_hits(hdk, ht):
 
 
 def test_timer_tree(hdk, ht):
-    hdk_tpu.enable_debug_timer(True)
+    hdk_jax.enable_debug_timer(True)
     try:
         ht.agg("k", "count").run()
-        rep = hdk_tpu.timer_report()
+        rep = hdk_jax.timer_report()
         assert rep and "ms" in rep
     finally:
-        hdk_tpu.enable_debug_timer(False)
+        hdk_jax.enable_debug_timer(False)
 
 
 def test_device_cache_budget_eviction():
     import numpy as np
-    from hdk_tpu.storage.memory import device_cache_manager
+    from hdk_jax.storage.memory import device_cache_manager
 
-    session = hdk_tpu.HDK(device_cache_budget_bytes=4 * 8 * 1000)  # 4 cols
+    session = hdk_jax.HDK(device_cache_budget_bytes=4 * 8 * 1000)  # 4 cols
     mgr = device_cache_manager()
     before = mgr.evictions
     data = {f"c{i}": np.arange(1000, dtype=np.int64) for i in range(8)}
@@ -86,7 +86,71 @@ def test_device_cache_budget_eviction():
     # correctness survives eviction: evicted columns re-transfer
     out = ht.agg([], "sum(c0)", "sum(c7)").run().to_pandas()
     assert out["c0_sum"][0] == out["c7_sum"][0] == 499500
-    device_cache_manager().set_budget(12 << 30)
+    from hdk_jax.storage.memory import default_budget
+
+    device_cache_manager().set_budget(default_budget())
+
+
+class _FakeDevice:
+    def __init__(self, platform, stats):
+        self.platform, self._stats = platform, stats
+        self.device_kind = f"fake {platform}"
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_default_budget_fraction_of_device_limit():
+    from hdk_jax.storage import memory
+
+    dev = _FakeDevice("gpu", {"bytes_limit": 60 << 30,
+                              "bytes_in_use": 1 << 20})
+    assert memory.default_budget(dev) == int(
+        (60 << 30) * memory.BUDGET_FRACTION)
+
+
+def test_default_budget_fixed_on_cpu():
+    import jax
+
+    from hdk_jax.storage import memory
+
+    assert memory.default_budget(_FakeDevice("cpu", None)) == \
+        memory.HOST_BUDGET
+    assert memory.default_budget() == memory.HOST_BUDGET  # tests run on CPU
+    assert jax.devices()[0].platform == "cpu"
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_in_use": 1}])
+def test_default_budget_refuses_accelerator_without_stats(stats):
+    from hdk_jax.storage import memory
+
+    with pytest.raises(RuntimeError, match="no memory limit"):
+        memory.default_budget(_FakeDevice("gpu", stats))
+
+
+def test_compile_cache_dir_follows_environment():
+    import os
+
+    from hdk_jax import _compile_cache_dir
+
+    assert _compile_cache_dir(
+        {"JAX_COMPILATION_CACHE_DIR": "/elsewhere"}) is None
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        hdk_jax.__file__)))
+    assert _compile_cache_dir({}) == os.path.join(root, ".jax_cache")
+
+
+def test_compile_cache_dir_applied_at_import():
+    import os
+
+    import jax
+
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        assert jax.config.jax_compilation_cache_dir == \
+            os.environ["JAX_COMPILATION_CACHE_DIR"]
+    else:
+        assert jax.config.jax_compilation_cache_dir == \
+            hdk_jax._compile_cache_dir({})
 
 
 def test_explain_analyze(rng):
@@ -95,9 +159,9 @@ def test_explain_analyze(rng):
     DurationTree combination)."""
     import re
 
-    import hdk_tpu
+    import hdk_jax
 
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     t = hdk.import_pydict({"k": rng.integers(0, 5, 2000),
                            "v": rng.integers(0, 50, 2000)}, name="ea_t")
     q = t.filter(t["v"] > 10).agg("k", "count", "sum(v)").sort("k")

@@ -7,13 +7,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture()
 def sess():
-    return hdk_tpu.HDK(**{"exec.enable_interop": True})
+    return hdk_jax.HDK(**{"exec.enable_interop": True})
 
 
 def test_unsupported_sql_falls_back_to_sqlite(sess):
@@ -43,9 +43,9 @@ def test_interop_decodes_strings(sess):
 
 
 def test_interop_off_by_default():
-    sess = hdk_tpu.HDK()
+    sess = hdk_jax.HDK()
     sess.import_pydict({"k": [1]}, name="io_off")
-    from hdk_tpu.sql.lexer import SqlError
+    from hdk_jax.sql.lexer import SqlError
 
     with pytest.raises(SqlError):
         sess.sql("WITH RECURSIVE cnt(x) AS (SELECT 1) "
@@ -53,7 +53,7 @@ def test_interop_off_by_default():
 
 
 def test_interop_engine_error_surfaces_for_bad_sql(sess):
-    from hdk_tpu.sql.lexer import SqlError
+    from hdk_jax.sql.lexer import SqlError
 
     sess.import_pydict({"k": [1]}, name="io_bad")
     with pytest.raises(SqlError):

@@ -12,13 +12,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 def test_lex_topn_matches_full_sort_fuzz(rng):
@@ -26,8 +26,8 @@ def test_lex_topn_matches_full_sort_fuzz(rng):
     masked and dead rows (one fixed shape: one compile per K)."""
     import jax.numpy as jnp
 
-    from hdk_tpu.exec.masked import MaskedCol
-    from hdk_tpu.exec.sort import lex_topn, sort_keys_int64
+    from hdk_jax.exec.masked import MaskedCol
+    from hdk_jax.exec.sort import lex_topn, sort_keys_int64
 
     n, topn = 257, 13
     for K in (1, 2, 3):
@@ -132,7 +132,7 @@ def test_fused_identity_tail_warm_repeat(hdk, rng):
     join -> fused identity+top-n tail, run TWICE — the second run rides
     plan-recycled join artifacts into the fused program and must match
     the pandas oracle exactly both times."""
-    hdk2 = hdk_tpu.HDK(**{"exec.eager_agg_min_rows": 1000,
+    hdk2 = hdk_jax.HDK(**{"exec.eager_agg_min_rows": 1000,
                           "exec.eager_agg_min_ratio": 0.1,
                           "exec.enable_route_feedback": False})
     n_ord, n_li = 9000, 60000

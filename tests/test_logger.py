@@ -5,8 +5,8 @@ import logging
 
 import pytest
 
-import hdk_tpu
-from hdk_tpu.utils import logger as hlog
+import hdk_jax
+from hdk_jax.utils import logger as hlog
 
 
 def test_severity_ladder_order():
@@ -21,9 +21,9 @@ def test_unknown_severity_rejected():
 
 
 def test_query_ids_bound_to_records(caplog):
-    sess = hdk_tpu.HDK(**{"debug.log_severity": "DEBUG1"})
+    sess = hdk_jax.HDK(**{"debug.log_severity": "DEBUG1"})
     sess.import_pydict({"k": [1, 2, 1], "v": [1.0, 2.0, 3.0]}, name="lg")
-    root = logging.getLogger("hdk_tpu")
+    root = logging.getLogger("hdk_jax")
     handler_records = []
 
     class Capture(logging.Handler):
@@ -45,8 +45,8 @@ def test_query_ids_bound_to_records(caplog):
 
 
 def test_default_severity_quiet(caplog):
-    sess = hdk_tpu.HDK()
-    root = logging.getLogger("hdk_tpu")
+    sess = hdk_jax.HDK()
+    root = logging.getLogger("hdk_jax")
     records = []
 
     class Capture(logging.Handler):

@@ -7,7 +7,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 
 from harness import assert_frames_match
 
@@ -18,7 +18,7 @@ def env(rng):
                       "u": rng.normal(size=60).round(6)})
     b = pd.DataFrame({"y": rng.integers(0, 20, 35),
                       "w": rng.integers(0, 9, 35)})
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     hdk.import_pandas(a, name="a")
     hdk.import_pandas(b, name="b")
     con = sqlite3.connect(":memory:")
@@ -60,7 +60,7 @@ def test_inner_cap_enforced(env, rng):
 
 
 def test_loop_join_disabled():
-    sess = hdk_tpu.HDK(**{"exec.join.enable_loop_join": False})
+    sess = hdk_jax.HDK(**{"exec.join.enable_loop_join": False})
     sess.import_pydict({"x": [1, 2]}, name="p")
     sess.import_pydict({"y": [3]}, name="q")
     with pytest.raises(Exception, match="enable_loop_join"):

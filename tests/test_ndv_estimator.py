@@ -5,7 +5,7 @@ Chao84 sample estimate instead of default_max_groups, compiling ONCE."""
 import numpy as np
 import pytest
 
-import hdk_tpu
+import hdk_jax
 
 
 @pytest.fixture()
@@ -13,14 +13,14 @@ def hdk():
     # estimator-contract tests run below the production min-rows gate
     # (the gate exists to spare small inputs the per-query sample pull;
     # test_small_input_skips_sampling covers the gate itself)
-    return hdk_tpu.HDK(**{"exec.group_by.ndv_sample_min_rows": 1 << 20})
+    return hdk_jax.HDK(**{"exec.group_by.ndv_sample_min_rows": 1 << 20})
 
 
 def test_small_input_skips_sampling(rng):
     """Below ndv_sample_min_rows no sample is pulled (cap == nrows is
     harmless there and the host readback would break warm pipelining);
     results and single-compile behavior are unchanged."""
-    h = hdk_tpu.HDK()  # default gate (1 << 23)
+    h = hdk_jax.HDK()  # default gate (1 << 23)
     n = 1_200_000
     ids = rng.integers(0, 30_000, n).astype(np.int64) * 48_271 + 11
     t = h.import_pydict({"k": ids}, name="ndv_gate")
@@ -66,7 +66,7 @@ def test_underestimate_still_correct(hdk, rng):
 
 
 def test_estimator_disabled(rng):
-    h = hdk_tpu.HDK(**{"exec.group_by.ndv_sample_size": 0})
+    h = hdk_jax.HDK(**{"exec.group_by.ndv_sample_size": 0})
     n = 1_100_000
     ids = rng.integers(0, 5_000, n).astype(np.int64) * 7_777_777_777
     t = h.import_pydict({"k": ids}, name="ndv_off")
@@ -96,7 +96,7 @@ def test_expression_key_estimates(hdk, rng):
 def test_extract_epoch_key_estimates(hdk, rng):
     """GROUP BY extract(epoch ...) — a datetime key expr with no static
     range — sizes its buffer from the sample (one compile)."""
-    import hdk_tpu.types as tt
+    import hdk_jax.types as tt
 
     n = 1_200_000
     secs = np.int64(1_356_998_400) + rng.integers(0, 5_000, n) * 3600

@@ -1,4 +1,4 @@
-"""Direct property tests for ops/onehot.py (the TPU segment-reduction
+"""Direct property tests for ops/onehot.py (the one-hot segment-reduction
 tier): bit-exact integer sums via bf16 limb decomposition, f64 accuracy,
 min/max, discard-segment semantics, multi-row-pass chunking."""
 
@@ -7,7 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from hdk_tpu.ops import onehot
+from hdk_jax.ops import onehot
 
 
 @pytest.mark.parametrize("n", [5, 10, 128, 640, 3000, 4096])

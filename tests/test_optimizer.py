@@ -6,13 +6,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -148,8 +148,8 @@ def test_join_inputs_reorder_by_cardinality(hdk, big, small):
 
 
 def test_estimate_rows():
-    from hdk_tpu.exec import cost
-    from hdk_tpu.ir import node as nd
+    from hdk_jax.exec import cost
+    from hdk_jax.ir import node as nd
 
     class FakeTable:
         nrows = 1000

@@ -1,13 +1,12 @@
-"""Order-preserving int64 key mapping, incl. the TPU-safe arithmetic
-f64 path (TPU's X64 rewriter cannot lower bitcasts FROM f64; the
-arithmetic IEEE-bit reconstruction must agree with the bitcast path)."""
+"""Order-preserving int64 key mapping (IEEE total-order trick over the
+bitcast of f32/f64 values)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hdk_tpu.exec import groupby as gb
+from hdk_jax.exec import groupby as gb
 
 
 @pytest.fixture()
@@ -22,37 +21,9 @@ def doubles(rng):
     return np.concatenate([vals, special])
 
 
-def test_f64_ieee_bits_exact(doubles):
-    x = doubles
-    got = np.asarray(jax.jit(gb._f64_ieee_bits)(jnp.asarray(x, jnp.float64)))
-    want = np.abs(x).view(np.int64) & 0x7FFFFFFFFFFFFFFF
-    want = np.where(np.isnan(x), 0x7FF8000000000000, want)
-    want = np.where(x == 0, 0, want)
-    np.testing.assert_array_equal(got, want)
-
-
-def test_arith_and_bitcast_paths_agree(doubles):
-    xj = jnp.asarray(doubles, jnp.float64)
-    saved = gb._F64_BITCAST_OK
-    try:
-        gb._F64_BITCAST_OK = False
-        o_arith = np.asarray(jax.jit(gb._orderable_int64)(xj))
-        gb._F64_BITCAST_OK = True
-        o_bc = np.asarray(jax.jit(gb._orderable_int64)(xj))
-    finally:
-        gb._F64_BITCAST_OK = saved
-    np.testing.assert_array_equal(o_arith, o_bc)
-
-
 def test_orderable_monotone(doubles):
     x = doubles[~np.isnan(doubles)]
-    saved = gb._F64_BITCAST_OK
-    try:
-        gb._F64_BITCAST_OK = False
-        o = np.asarray(jax.jit(gb._orderable_int64)(
-            jnp.asarray(x, jnp.float64)))
-    finally:
-        gb._F64_BITCAST_OK = saved
+    o = np.asarray(jax.jit(gb._orderable_int64)(jnp.asarray(x, jnp.float64)))
     idx = np.argsort(x, kind="stable")
     assert (np.diff(o[idx]) >= 0).all()
     # strictly increasing between distinct values (injective), except the
@@ -70,3 +41,22 @@ def test_f32_path_native_bitcast(rng):
     idx = np.argsort(x, kind="stable")
     assert (np.diff(o[idx]) >= 0).all()
     assert o[0] == o[1]  # +/-0.0 equal
+
+
+def test_f64_bitcast_key_nan_and_zero(doubles):
+    """f64 keys: +/-0.0 share a key, every NaN maps to one key above
+    +inf, and the order of all other values (infinities included) is
+    kept."""
+    x = np.concatenate([doubles, [np.nan, -np.nan, -0.0, 0.0]])
+    o = np.asarray(jax.jit(gb._orderable_int64)(jnp.asarray(x, jnp.float64)))
+    nan = np.isnan(x)
+    assert len(set(o[nan].tolist())) == 1
+    assert o[nan][0] > o[~nan].max()
+    assert o[~nan][x[~nan] == np.inf][0] == o[~nan].max()
+    zeros = o[x == 0]
+    assert (zeros == zeros[0]).all() and zeros[0] == 0
+    assert (o[x < 0] < 0).all() and (o[(x > 0) & ~nan] > 0).all()
+    idx = np.argsort(x[~nan], kind="stable")
+    xs, os_ = x[~nan][idx], o[~nan][idx]
+    np.testing.assert_array_equal(os_[1:] > os_[:-1], xs[1:] > xs[:-1])
+    np.testing.assert_array_equal(os_[1:] == os_[:-1], xs[1:] == xs[:-1])

@@ -12,13 +12,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 def _sql_outer_oracle(lhs, rhs, keys, how, residual=None):
@@ -211,7 +211,7 @@ def test_full_join_string_keys(hdk):
 
 
 def test_right_join_dist_session(data):
-    import hdk_tpu as ht
+    import hdk_jax as ht
     lhs, rhs = data[0], data[1]
     s = ht.HDK(**{"dist.enable": True})
     s.import_pandas(lhs, name="ojd_l")

@@ -10,13 +10,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture()
 def sess():
-    s = hdk_tpu.HDK()
+    s = hdk_jax.HDK()
     s.config.exec.eager_agg_min_rows = 500
     s.config.exec.eager_agg_min_ratio = 1.0
     return s
@@ -106,7 +106,7 @@ def test_append_invalidates_recycled_artifacts(sess, q3ish, rng):
 
 
 def test_disabled_cache_never_skips(q3ish, rng):
-    s2 = hdk_tpu.HDK(**{"cache.enable_hashtable_cache": False})
+    s2 = hdk_jax.HDK(**{"cache.enable_hashtable_cache": False})
     s2.config.exec.eager_agg_min_rows = 500
     s2.config.exec.eager_agg_min_ratio = 1.0
     cust, orders, li = q3ish

@@ -5,13 +5,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +134,7 @@ def test_neg(ht):
 def test_decimal_arith(hdk):
     ht = hdk.import_pydict(
         {"d": [100, 250, -325]},
-        name="dec_t", schema={"d": hdk_tpu.types.decimal64(10, 2)})
+        name="dec_t", schema={"d": hdk_jax.types.decimal64(10, 2)})
     # d is 1.00, 2.50, -3.25
     out = ht.proj(s=ht["d"] + ht["d"], m=ht["d"] * 2,
                   f=ht["d"].cast("fp64")).run()

@@ -6,8 +6,8 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
-from hdk_tpu.exec import prune
+import hdk_jax
+from hdk_jax.exec import prune
 
 from harness import assert_frames_match
 
@@ -15,7 +15,7 @@ from harness import assert_frames_match
 @pytest.fixture()
 def sess():
     # small fragments so a 1200-row table has 12 fragments
-    return hdk_tpu.HDK(**{"storage.fragment_size": 100})
+    return hdk_jax.HDK(**{"storage.fragment_size": 100})
 
 
 @pytest.fixture()
@@ -111,7 +111,7 @@ def test_sql_between_dates(sess, rng):
 
 
 def test_prune_disabled_flag(frame):
-    sess = hdk_tpu.HDK(**{"storage.fragment_size": 100,
+    sess = hdk_jax.HDK(**{"storage.fragment_size": 100,
                           "exec.enable_fragment_skipping": False})
     ht = sess.import_pandas(frame, name="t8")
     res = ht.filter(ht["d"] == 5).agg("k", "count").run().to_pandas()

@@ -16,7 +16,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
@@ -36,7 +36,7 @@ def env(rng):
         "s": rng.choice(["foo", "bar", "baz", "quux"], n),
         "b": rng.integers(0, 2, n),
     })
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     hdk.import_pandas(df, name="rt")
     inner = pd.DataFrame({
         "x": rng.integers(5, 10, 40),

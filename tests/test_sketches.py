@@ -6,19 +6,19 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 def test_hll_kernel_error_bound(rng):
     """Raw sketch: estimate within the 1.04/sqrt(m) envelope at p=11."""
     import jax.numpy as jnp
-    from hdk_tpu.ops import sketches as sk
+    from hdk_jax.ops import sketches as sk
 
     for true_nd in (100, 5_000, 60_000):
         vals = rng.integers(0, true_nd, 200_000)
@@ -33,7 +33,7 @@ def test_hll_kernel_error_bound(rng):
 def test_hll_merge_equals_union(rng):
     """Register max of two sketches == sketch of the union (hll_unify)."""
     import jax.numpy as jnp
-    from hdk_tpu.ops import sketches as sk
+    from hdk_jax.ops import sketches as sk
 
     a = rng.integers(0, 10_000, 50_000)
     b = rng.integers(5_000, 15_000, 50_000)
@@ -48,7 +48,7 @@ def test_hll_merge_equals_union(rng):
 
 def test_tdigest_quantile_error(rng):
     import jax.numpy as jnp
-    from hdk_tpu.ops import sketches as sk
+    from hdk_jax.ops import sketches as sk
 
     vals = rng.normal(size=100_000)
     gid = jnp.zeros(vals.shape[0], jnp.int32)
@@ -63,7 +63,7 @@ def test_tdigest_quantile_error(rng):
 
 def test_tdigest_merge_preserves_accuracy(rng):
     import jax.numpy as jnp
-    from hdk_tpu.ops import sketches as sk
+    from hdk_jax.ops import sketches as sk
 
     vals = rng.normal(size=80_000)
     halves = np.split(vals, 8)
@@ -156,7 +156,7 @@ def test_sql_approx_aggs(hdk, data):
 
 @pytest.fixture(scope="module")
 def dist_session():
-    return hdk_tpu.HDK(**{"dist.enable": True})
+    return hdk_jax.HDK(**{"dist.enable": True})
 
 
 def test_dist_approx_matches_local(dist_session, data, ht):
@@ -200,7 +200,7 @@ def test_dist_approx_skewed_heavy_hitter(dist_session, rng):
 
 
 def test_streaming_approx_count_distinct(hdk, rng):
-    from hdk_tpu.streaming import StreamingAggregation
+    from hdk_jax.streaming import StreamingAggregation
 
     schema = {"k": "int64", "v": "int64"}
     sa = StreamingAggregation(hdk, schema, ["k"],

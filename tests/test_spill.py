@@ -6,13 +6,13 @@ transparently)."""
 import numpy as np
 import pytest
 
-import hdk_tpu
-from hdk_tpu.storage.memory import device_cache_manager
+import hdk_jax
+from hdk_jax.storage.memory import device_cache_manager
 
 
 @pytest.fixture()
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 def test_explicit_offload_roundtrip(hdk):

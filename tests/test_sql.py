@@ -11,13 +11,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -251,7 +251,7 @@ def test_timestamp_literal(hdk):
 
 def test_sql_errors(env):
     hdk, _ = env
-    from hdk_tpu.sql.lexer import SqlError
+    from hdk_jax.sql.lexer import SqlError
 
     with pytest.raises(SqlError):
         hdk.sql("SELECT nope FROM t")

@@ -4,13 +4,13 @@ import numpy as np
 import pyarrow as pa
 import pytest
 
-import hdk_tpu
-from hdk_tpu import types as t
+import hdk_jax
+from hdk_jax import types as t
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 def test_import_pydict_types(hdk):
@@ -46,7 +46,7 @@ def test_fragment_stats(hdk):
 
 
 def test_fragments_split():
-    session = hdk_tpu.HDK(fragment_size=10)
+    session = hdk_jax.HDK(fragment_size=10)
     ht = session.import_pydict({"v": list(range(25))}, name="frag_t")
     table = session._schema.get("frag_t")
     assert table.fragments == [(0, 10), (10, 20), (20, 25)]
@@ -83,7 +83,7 @@ def test_rowid(hdk):
 
 
 def test_string_dictionary_dedup(hdk):
-    from hdk_tpu.storage.dictionary import StringDictionary
+    from hdk_jax.storage.dictionary import StringDictionary
 
     d = StringDictionary(1)
     codes = d.bulk_get_or_add(["a", "b", "a", None, "c"])
@@ -94,7 +94,7 @@ def test_string_dictionary_dedup(hdk):
 
 
 def test_dictionary_translation(hdk):
-    from hdk_tpu.storage.dictionary import NULL_CODE, StringDictionary
+    from hdk_jax.storage.dictionary import NULL_CODE, StringDictionary
 
     d1 = StringDictionary(1)
     d2 = StringDictionary(2)
@@ -125,13 +125,13 @@ def test_import_json(tmp_path, rng):
     """Line-delimited JSON ingest (reference: ArrowStorage importJson)."""
     import json as _json
 
-    import hdk_tpu
+    import hdk_jax
 
     p = tmp_path / "t.json"
     rows = [{"a": int(i), "b": float(i) / 2, "s": f"v{i % 3}"}
             for i in range(50)]
     p.write_text("\n".join(_json.dumps(r) for r in rows))
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     t = hdk.import_json(str(p), name="jt")
     got = t.agg("s", "count", "sum(a)").sort("s").run().to_pandas()
     import pandas as pd

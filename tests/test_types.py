@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from hdk_tpu import types as t
+from hdk_jax import types as t
 
 
 def test_parse_simple():

@@ -1,20 +1,20 @@
 """User-defined scalar functions (reference: UdfCompiler.h:30,
 Tests/UdfTest.cpp — here UDFs are jax-traceable functions fusing into
-the query program; see hdk_tpu/udf.py)."""
+the query program; see hdk_jax/udf.py)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
-from hdk_tpu import types as t
+import hdk_jax
+from hdk_jax import types as t
 from harness import assert_frames_match
 
 
 @pytest.fixture()
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture()
@@ -83,7 +83,7 @@ def test_udf_rereg_invalidates_cache(hdk, ht):
 
 
 def test_udf_wrong_arity_rejected(hdk, ht):
-    from hdk_tpu.sql.binder import SqlError
+    from hdk_jax.sql.binder import SqlError
 
     hdk.register_udf("one_arg", lambda a: a, arg_types=[t.int64()],
                      ret_type=t.int64())

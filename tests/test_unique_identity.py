@@ -13,13 +13,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
-from hdk_tpu.exec.agg_exec import AggExecMixin
+import hdk_jax
+from hdk_jax.exec.agg_exec import AggExecMixin
 
 
 @pytest.fixture()
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 def _track_identity(monkeypatch):

@@ -6,13 +6,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import hdk_tpu
+import hdk_jax
 from harness import assert_frames_match
 
 
 @pytest.fixture(scope="module")
 def hdk():
-    return hdk_tpu.HDK()
+    return hdk_jax.HDK()
 
 
 @pytest.fixture(scope="module")
@@ -161,7 +161,7 @@ def frame_env(rng):
     vn = df["v"].copy()
     vn[rng.random(n) < 0.1] = np.nan
     df["vn"] = vn
-    sess = hdk_tpu.HDK()
+    sess = hdk_jax.HDK()
     sess.import_pandas(df, name="fw")
     con = sqlite3.connect(":memory:")
     df.to_sql("fw", con, index=False)

@@ -1,10 +1,8 @@
 #!/usr/bin/env python
-"""Measure the sampling-estimator host-readback overhead (VERDICT r3
-weak #7): the NDV/skew sample pulls are the one host round-trip class
-the engine otherwise avoids — this records their cost as a fraction of
-the queries they serve, on the real device.
-
-Writes NDV_OVERHEAD.json.  Reference analog: the estimator mini-query
+"""Measure the sampling-estimator host-readback overhead: the NDV/skew
+sample pulls are the one host round-trip class the engine otherwise
+avoids — this records their cost as a fraction of the queries they
+serve.  Prints one JSON object.  Reference analog: the estimator mini-query
 cost the reference pays per work unit (CardinalityEstimator.h:59).
 """
 
@@ -21,11 +19,10 @@ def main() -> None:
         os.path.abspath(__file__))))
     import numpy as np
 
-    import hdk_tpu
-    from hdk_tpu.utils import benchtime
+    import hdk_jax
 
     rows = int(os.environ.get("NDV_ROWS", "100000000"))
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     rng = np.random.default_rng(5)
     # unbounded keys (hashed): the NDV sampler is on the hot path
     k = rng.integers(0, rows // 2, rows).astype(np.int64) * 2654435761 % (
@@ -41,30 +38,32 @@ def main() -> None:
     # cold (includes the estimator's jit build + pull)
     s0 = ex._ndv_sample_seconds
     t0 = time.perf_counter()
-    q()
+    q().block()
     cold = time.perf_counter() - t0
     cold_sample = ex._ndv_sample_seconds - s0
 
     # warm: per-execution estimator cost vs total query time
     s0 = ex._ndv_sample_seconds
-    m = benchtime.measure(q, warmup=1, iters=3)
+    q().block()
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        q().block()
+        samples.append(time.perf_counter() - t0)
+    warm = sorted(samples)[1]
     warm_sample_per_iter = (ex._ndv_sample_seconds - s0) / 4  # 1+3 runs
     out = {
         "rows": rows,
         "cold_seconds": round(cold, 3),
         "cold_sample_seconds": round(cold_sample, 4),
-        "warm_query_seconds": round(float(m["throughput_s"]), 4),
+        "warm_query_seconds": warm,
         "warm_sample_seconds_per_query": round(warm_sample_per_iter, 4),
         "sample_fraction_of_warm_query": round(
-            warm_sample_per_iter / float(m["throughput_s"]), 4),
+            warm_sample_per_iter / warm, 4),
         "attempts": ex._groupby_attempts,
         "ndv_estimate": ex._ndv_estimate,
     }
     print(json.dumps(out))
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "NDV_OVERHEAD.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=2)
 
 
 if __name__ == "__main__":

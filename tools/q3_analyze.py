@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """TPC-H Q3 diagnosis: per-run wall time + jit-build deltas + plan
-variant + EXPLAIN ANALYZE step breakdown (VERDICT r4 next #2).
+variant + EXPLAIN ANALYZE step breakdown.
 
     python tools/q3_analyze.py [--scale 1.0] [--runs 8] [--no-analyze]
 """
@@ -8,7 +8,6 @@ variant + EXPLAIN ANALYZE step breakdown (VERDICT r4 next #2).
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
 import time
@@ -24,57 +23,15 @@ def main() -> None:
     ap.add_argument("--no-analyze", action="store_true")
     args = ap.parse_args()
 
-    import jax
-
     import bench_suite
-    import hdk_tpu
-    from hdk_tpu.utils import benchtime
+    import hdk_jax
 
-    hdk = hdk_tpu.HDK()
+    hdk = hdk_jax.HDK()
     ex = hdk._executor
-
-    # reuse the suite's data generator + query
-    import numpy as np
-
-    n_cust = int(1_500_000 * args.scale)
-    n_ord = int(15_000_000 * args.scale)
-    n_li = int(60_000_000 * args.scale)
-    rng = np.random.default_rng(23)
-    seg = np.asarray(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
-                      "MACHINERY"])
-    base = np.int64(694224000)
-    year7 = 7 * 365 * 86400
-    ts = hdk_tpu.types
-    hdk.import_pydict({
-        "c_custkey": np.arange(n_cust, dtype=np.int64),
-        "c_mktsegment": seg[rng.integers(0, 5, n_cust)],
-    }, name="customer3")
-    hdk.import_pydict({
-        "o_orderkey": np.arange(n_ord, dtype=np.int64),
-        "o_custkey": rng.integers(0, n_cust, n_ord),
-        "o_orderdate": base + rng.integers(0, year7, n_ord),
-        "o_shippriority": rng.integers(0, 3, n_ord).astype(np.int8),
-    }, name="orders3", schema={
-        "o_orderdate": ts.timestamp(ts.TimeUnit.SECOND, False)})
-    hdk.import_pydict({
-        "l_orderkey": rng.integers(0, n_ord, n_li),
-        "l_extendedprice": rng.gamma(3.0, 12000.0, n_li).astype(np.float32),
-        "l_discount": np.round(rng.uniform(0.0, 0.1, n_li), 2
-                               ).astype(np.float32),
-        "l_shipdate": base + rng.integers(0, year7, n_li),
-    }, name="lineitem3", schema={
-        "l_shipdate": ts.timestamp(ts.TimeUnit.SECOND, False)})
-
-    Q3 = ("SELECT l_orderkey, "
-          "SUM(l_extendedprice * (1 - l_discount)) AS revenue, "
-          "o_orderdate, o_shippriority "
-          "FROM customer3, orders3, lineitem3 "
-          "WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey "
-          "AND l_orderkey = o_orderkey "
-          "AND o_orderdate < TIMESTAMP '1995-03-15 00:00:00' "
-          "AND l_shipdate > TIMESTAMP '1995-03-15 00:00:00' "
-          "GROUP BY l_orderkey, o_orderdate, o_shippriority "
-          "ORDER BY revenue DESC, o_orderdate LIMIT 10")
+    for name, (cols, schema) in bench_suite.tpch_q3_data(
+            args.scale).items():
+        hdk.import_pydict(cols, name=name, schema=schema)
+    Q3 = bench_suite.TPCH_Q3
 
     def run():
         return hdk.sql(Q3)
@@ -82,8 +39,7 @@ def main() -> None:
     for i in range(args.runs):
         b0 = ex.code_cache.misses
         t0 = time.perf_counter()
-        r = run()
-        jax.device_get(benchtime._tips(r))
+        run().block()
         secs = time.perf_counter() - t0
         fb = ex._plan_feedback
         sigs = {v for (s, v) in fb._fb._t}

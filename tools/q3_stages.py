@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Q3 stage costing: warm pipelined timings of Q3 sub-plans + both plan
-variants (rewrite vs original), all in one session on the real device.
+"""Q3 stage costing: warm timings of Q3 sub-plans + both plan variants
+(rewrite vs original), all in one session.
 
     python tools/q3_stages.py [--scale 1.0]
 """
@@ -21,40 +21,13 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=1.0)
     args = ap.parse_args()
 
-    import numpy as np
+    import bench_suite
+    import hdk_jax
 
-    import hdk_tpu
-    from hdk_tpu.utils import benchtime
-
-    hdk = hdk_tpu.HDK(**{"exec.enable_route_feedback": False})
-    n_cust = int(1_500_000 * args.scale)
-    n_ord = int(15_000_000 * args.scale)
-    n_li = int(60_000_000 * args.scale)
-    rng = np.random.default_rng(23)
-    seg = np.asarray(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
-                      "MACHINERY"])
-    base = np.int64(694224000)
-    year7 = 7 * 365 * 86400
-    ts = hdk_tpu.types
-    hdk.import_pydict({
-        "c_custkey": np.arange(n_cust, dtype=np.int64),
-        "c_mktsegment": seg[rng.integers(0, 5, n_cust)],
-    }, name="customer3")
-    hdk.import_pydict({
-        "o_orderkey": np.arange(n_ord, dtype=np.int64),
-        "o_custkey": rng.integers(0, n_cust, n_ord),
-        "o_orderdate": base + rng.integers(0, year7, n_ord),
-        "o_shippriority": rng.integers(0, 3, n_ord).astype(np.int8),
-    }, name="orders3", schema={
-        "o_orderdate": ts.timestamp(ts.TimeUnit.SECOND, False)})
-    hdk.import_pydict({
-        "l_orderkey": rng.integers(0, n_ord, n_li),
-        "l_extendedprice": rng.gamma(3.0, 12000.0, n_li).astype(np.float32),
-        "l_discount": np.round(rng.uniform(0.0, 0.1, n_li), 2
-                               ).astype(np.float32),
-        "l_shipdate": base + rng.integers(0, year7, n_li),
-    }, name="lineitem3", schema={
-        "l_shipdate": ts.timestamp(ts.TimeUnit.SECOND, False)})
+    hdk = hdk_jax.HDK(**{"exec.enable_route_feedback": False})
+    for name, (cols, schema) in bench_suite.tpch_q3_data(
+            args.scale).items():
+        hdk.import_pydict(cols, name=name, schema=schema)
 
     DATE = "TIMESTAMP '1995-03-15 00:00:00'"
     stages = {
@@ -81,10 +54,16 @@ def main() -> None:
     }
 
     def timed(sql, label):
-        fn = lambda: hdk.sql(sql)
-        m = benchtime.measure(fn, warmup=2, iters=4, latency_iters=1)
-        print(f"{label}: warm {m['throughput_s']:.3f}s", flush=True)
-        return m["throughput_s"]
+        for _ in range(2):  # compile, then settle
+            hdk.sql(sql).block()
+        samples = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            hdk.sql(sql).block()
+            samples.append(time.perf_counter() - t0)
+        secs = sorted(samples)[2]
+        print(f"{label}: warm {secs:.3f}s", flush=True)
+        return secs
 
     for label, sql in stages.items():
         timed(sql, label)
